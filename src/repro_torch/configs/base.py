@@ -1,0 +1,194 @@
+"""Config dataclasses for the repro framework.
+
+Everything is a frozen dataclass so configs are hashable and can be used as
+part of a *compile signature* (the funcX "container type" analogue — see
+DESIGN.md §2).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts sub-config."""
+    n_experts: int
+    top_k: int
+    d_ff_expert: int          # hidden size per expert FFN
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # load-balancing auxiliary loss weight (Switch/GShard style)
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2 / MiniCPM3 style)."""
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD sub-config."""
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
+class RecurrentConfig:
+    """RG-LRU + local attention hybrid (RecurrentGemma / Griffin)."""
+    lru_width: int
+    attention_window: int = 2048
+    # block pattern: this many recurrent blocks followed by one local-attn
+    # block ("1:2" in the paper == 2 recurrent : 1 attention).
+    pattern: Tuple[str, ...] = ("recurrent", "recurrent", "attention")
+    conv1d_width: int = 4
+
+
+@dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder-decoder layout (seamless-m4t backbone)."""
+    n_encoder_layers: int
+    # source sequence length is carried by the shape config; the audio
+    # frontend is a STUB: input_specs() provides precomputed frame embeddings.
+    frontend: str = "stub_frames"
+
+
+@dataclass(frozen=True)
+class VLMConfig:
+    """Vision-language backbone (qwen2-vl). Vision frontend is a STUB:
+    input_specs() provides precomputed patch embeddings projected to d_model."""
+    vision_prefix_len: int = 1024
+    # M-RoPE section split across (temporal, height, width)
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    frontend: str = "stub_patches"
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"         # activation/compute dtype
+    param_dtype: str = "float32"    # master parameter dtype
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    recurrent: Optional[RecurrentConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    vlm: Optional[VLMConfig] = None
+    # Attention flavour of the stack: "full" or "local"; hybrids override
+    # per-block via RecurrentConfig.pattern.
+    attention_kind: str = "full"
+    # Sub-quadratic context support (drives long_500k applicability).
+    subquadratic: bool = False
+
+    # ---- derived ----------------------------------------------------------
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    def padded_vocab(self, multiple: int = 256) -> int:
+        """Vocab padded for MXU alignment and even mesh sharding."""
+        return _round_up(self.vocab_size, multiple)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.encdec is not None
+
+    def with_(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape × step-kind) cell. ``decode``/``long`` lower
+    ``serve_step`` (one new token against a KV cache of ``seq_len``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """Sharding policy knobs — the hillclimb surface for §Perf."""
+    policy: str = "fsdp"            # "dp" | "fsdp" | "tp" | "fsdp_tp"
+    shard_sequence: bool = False    # sequence parallelism for batch-1 decode
+    remat: str = "full"             # "none" | "dots" | "full"
+    scan_layers: bool = True
+    repeat_kv_for_tp: bool = False  # replicate kv heads so TP divides evenly
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    microbatch: Optional[int] = None   # grad-accumulation microbatch size
+    z_loss: float = 0.0
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_batch: int = 8
+    temperature: float = 0.0
+    top_k: int = 0

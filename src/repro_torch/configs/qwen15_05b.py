@@ -1,0 +1,31 @@
+"""qwen1.5-0.5b — dense, 24L d1024 16H (GQA kv=16) d_ff=2816, QKV bias.
+[hf:Qwen/Qwen1.5-0.5B; hf]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-0.5b",
+    family="dense",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=2816,
+    vocab_size=151_936,
+    qkv_bias=True,
+    tie_embeddings=True,
+)
+
+
+def reduced() -> ModelConfig:
+    return ModelConfig(
+        name="qwen1.5-0.5b@smoke",
+        family="dense",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=4,
+        d_ff=128,
+        vocab_size=128,
+        qkv_bias=True,
+        tie_embeddings=True,
+    )

@@ -1,0 +1,89 @@
+"""Registry of assigned architectures × input shapes (40 cells).
+
+``--arch <id>`` everywhere in the framework resolves through here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, List, Optional, Tuple
+
+from .base import ModelConfig, ShapeConfig
+from .shapes import SHAPES, get_shape
+
+from . import (
+    granite_moe_1b_a400m,
+    llama4_scout_17b_a16e,
+    mamba2_370m,
+    minicpm3_4b,
+    phi4_mini_3_8b,
+    qwen15_05b,
+    qwen15_110b,
+    qwen2_vl_7b,
+    recurrentgemma_9b,
+    seamless_m4t_large_v2,
+)
+
+_MODULES = {
+    "granite-moe-1b-a400m": granite_moe_1b_a400m,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
+    "seamless-m4t-large-v2": seamless_m4t_large_v2,
+    "qwen1.5-110b": qwen15_110b,
+    "phi4-mini-3.8b": phi4_mini_3_8b,
+    "qwen1.5-0.5b": qwen15_05b,
+    "minicpm3-4b": minicpm3_4b,
+    "qwen2-vl-7b": qwen2_vl_7b,
+    "recurrentgemma-9b": recurrentgemma_9b,
+    "mamba2-370m": mamba2_370m,
+}
+
+ARCH_IDS: List[str] = list(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    try:
+        return _MODULES[arch].CONFIG
+    except KeyError:
+        raise KeyError(f"unknown arch {arch!r}; options: {ARCH_IDS}") from None
+
+
+def get_reduced_config(arch: str) -> ModelConfig:
+    return _MODULES[arch].reduced()
+
+
+@dataclass(frozen=True)
+class Cell:
+    """One (architecture × input shape) grid cell."""
+    arch: str
+    shape: str
+    skip_reason: Optional[str] = None
+
+    @property
+    def runnable(self) -> bool:
+        return self.skip_reason is None
+
+    def configs(self) -> Tuple[ModelConfig, ShapeConfig]:
+        return get_config(self.arch), get_shape(self.shape)
+
+
+def _skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return (
+            "long_500k requires sub-quadratic attention; "
+            f"{cfg.name} is pure full-attention (see DESIGN.md §Arch-applicability)"
+        )
+    return None
+
+
+def cells(include_skipped: bool = True) -> Iterator[Cell]:
+    """All 40 (arch × shape) cells, with skip annotations."""
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape_name in SHAPES:
+            reason = _skip_reason(cfg, SHAPES[shape_name])
+            if reason is not None and not include_skipped:
+                continue
+            yield Cell(arch, shape_name, reason)
+
+
+def runnable_cells() -> List[Cell]:
+    return [c for c in cells() if c.runnable]
