@@ -36,7 +36,8 @@ using repro::Strides;
 constexpr int kThreads = 128;
 constexpr int kMaxGroup = 8;  // query heads per kv head that a block takes
 
-__host__ __device__ constexpr int split_rows(int D) { return 4096 / D; }  // 64 at D=64, 32 at D=128
+// cache rows per split: 256 at D=16, 128 at D=32, 64 at D=64, 32 at D=128
+__host__ __device__ constexpr int split_rows(int D) { return 4096 / D; }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -171,7 +172,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
 // Number of cache splits pass 1 uses; the caller sizes the partials with it:
 // part_ml (B, H, splits, 2) and part_acc (B, H, splits, D), both float32.
 extern "C" int decode_attention_splits(int D, int S) {
-  if (D != 64 && D != 128) return REPRO_UNSUPPORTED;
+  if (D != 16 && D != 32 && D != 64 && D != 128) return REPRO_UNSUPPORTED;
   return (S + split_rows(D) - 1) / split_rows(D);
 }
 
@@ -194,10 +195,14 @@ extern "C" int decode_attention_fwd(int dtype, int device, const void* q, const 
 #define REPRO_DECODE(T, DIM)                                                                  \
   launch<T, DIM>(q, k, v, lengths, part_ml, part_acc, o, B, S, H, KVH, qs, ks, vs, window, \
                  scale, st)
-  if (dtype == 0 && D == 64) return REPRO_DECODE(float, 64);
-  if (dtype == 0 && D == 128) return REPRO_DECODE(float, 128);
-  if (dtype == 1 && D == 64) return REPRO_DECODE(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) return REPRO_DECODE(__nv_bfloat16, 128);
+#define REPRO_DECODE_DIMS(T)                   \
+  if (D == 16) return REPRO_DECODE(T, 16);     \
+  if (D == 32) return REPRO_DECODE(T, 32);     \
+  if (D == 64) return REPRO_DECODE(T, 64);     \
+  if (D == 128) return REPRO_DECODE(T, 128);
+  if (dtype == 0) { REPRO_DECODE_DIMS(float) }
+  if (dtype == 1) { REPRO_DECODE_DIMS(__nv_bfloat16) }
+#undef REPRO_DECODE_DIMS
 #undef REPRO_DECODE
   return REPRO_UNSUPPORTED;
 }

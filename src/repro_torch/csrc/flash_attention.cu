@@ -9,20 +9,25 @@
 // What bounds it on this card: at the serving shapes (B=4, S=512, 16 heads,
 // head dim 64, bf16) the function moves ~17 MB of q/k/v/o and does ~2.1
 // GFLOP of causal work, so its floor is the memory (~5 us at 3.35 TB/s), not
-// the tensor cores (~2 us at 989 TF/s). This first version runs its products
+// the tensor cores (~2 us at 989 TF/s); at recurrentgemma-9b's (16 heads,
+// one kv head, head dim 256, window 2048) it moves ~36 MB (~11 us) for 8.6
+// GFLOP (~9 us). This first version runs its products
 // on the CUDA cores in f32 (67 TF/s), which makes it bound by operations and
 // by shared-memory reads instead; moving the two products to wgmma is the
 // later step.
 //
-// Design: one block of 256 threads owns 64 query rows of one (batch, head);
-// four neighbouring lanes share a row, each holding a quarter of the head
-// dim of q and of the accumulator in registers, and reduce their partial dot
-// products with two shuffles. K/V tiles are staged through shared memory as
-// f32. The kv loop runs only over the tiles below the causal limit and above
-// the window limit of the block's rows — no tile is visited and then gated,
-// unlike the TPU grid, which has to step through every kv block. Operands
-// are read in the model layout (B, S, heads, D) through their strides, so no
-// transpose copy precedes the launch.
+// Design: one block of 256 threads owns 64 query rows of one (batch, head)
+// (32 rows at head dim 256); four neighbouring lanes share a row (eight at head
+// dim 256), each holding its share of the head dim of q and of the
+// accumulator in registers, and reduce their partial dot products with
+// shuffles. At head dim 256 four lanes would each hold 128 floats of q and
+// accumulator, past the register budget of a 256-thread block, hence eight.
+// K/V tiles are staged through shared memory as f32. The kv loop runs only
+// over the tiles below the causal limit and above the window limit of the
+// block's rows — no tile is visited and then gated, unlike the TPU grid,
+// which has to step through every kv block. Operands are read in the model
+// layout (B, S, heads, D) through their strides, so no transpose copy
+// precedes the launch. Head dims 16, 32, 64, 128 and 256 are instantiated.
 
 #include "common.cuh"
 
@@ -31,18 +36,22 @@ namespace {
 using repro::kNegInf;
 using repro::Strides;
 
-constexpr int kBlockQ = 64;                 // query rows per block
-constexpr int kLanes = 4;                   // threads sharing one query row
-constexpr int kThreads = kBlockQ * kLanes;  // 256
+constexpr int kThreads = 256;
+
+// threads sharing one query row, query rows per block, kv rows per tile
+__host__ __device__ constexpr int lanes(int D) { return D >= 256 ? 8 : 4; }
+__host__ __device__ constexpr int block_q(int D) { return kThreads / lanes(D); }
+__host__ __device__ constexpr int block_k(int D) { return D >= 64 ? 4096 / D : 64; }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, int Sq, int Sk, int H, int KVH, Strides qs, Strides ks,
           Strides vs, int causal, int window, int q_offset, float scale) {
-  constexpr int BK = 4096 / D;          // kv rows per tile: 64 at D=64, 32 at D=128
+  constexpr int kLanes = lanes(D), kBlockQ = block_q(D);
+  constexpr int BK = block_k(D);        // kv rows per tile: 64 up to D=64, 32 at 128, 16 at 256
   constexpr int C4 = D / 4;             // float4 chunks in one row
-  constexpr int CH = C4 / kLanes;       // chunks each lane owns: 4 at D=64, 8 at D=128
+  constexpr int CH = C4 / kLanes;       // chunks each lane owns: 1 at D=16 ... 8 at D=128 and 256
   __shared__ float4 k_s[BK][C4];
   __shared__ float4 v_s[BK][C4];
 
@@ -52,8 +61,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int qi = qb * kBlockQ + row;
   const int qpos = qi + q_offset;
 
-  // lane owns the float4 chunks lane, lane + 4, lane + 8, ... of its row, so
-  // the four lanes of a row read four neighbouring chunks of a K/V row.
+  // lane owns the float4 chunks lane, lane + kLanes, ... of its row, so the
+  // lanes of a row read neighbouring chunks of a K/V row.
   float4 qr[CH], acc[CH];
   const T* qrow = q + b * qs.b + (long long)qi * qs.s + (long long)h * qs.h;
 #pragma unroll
@@ -97,8 +106,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         const float4 kk = k_s[j][lane + kLanes * i];
         part += qr[i].x * kk.x + qr[i].y * kk.y + qr[i].z * kk.z + qr[i].w * kk.w;
       }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+      for (int off = 1; off < kLanes; off <<= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
       const int kp = t0 + j;
       const bool live = kp < Sk && (!causal || qpos >= kp) && (window <= 0 || qpos - kp < window);
       s[j] = live ? part : kNegInf;
@@ -140,7 +149,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                    int H, int KVH, Strides qs, Strides ks, Strides vs, int causal, int window,
                    int q_offset, float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
+  const dim3 grid((Sq + block_q(D) - 1) / block_q(D), H, B);
   flash_fwd<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Sq, Sk, H, KVH, qs, ks, vs, causal, window, q_offset, scale);
@@ -165,10 +174,15 @@ extern "C" int flash_attention_fwd(int dtype, int device, const void* q, const v
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH(T, DIM) \
   launch<T, DIM>(q, k, v, o, B, Sq, Sk, H, KVH, qs, ks, vs, causal, window, q_offset, scale, st)
-  if (dtype == 0 && D == 64) return REPRO_FLASH(float, 64);
-  if (dtype == 0 && D == 128) return REPRO_FLASH(float, 128);
-  if (dtype == 1 && D == 64) return REPRO_FLASH(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) return REPRO_FLASH(__nv_bfloat16, 128);
+#define REPRO_FLASH_DIMS(T)                    \
+  if (D == 16) return REPRO_FLASH(T, 16);      \
+  if (D == 32) return REPRO_FLASH(T, 32);      \
+  if (D == 64) return REPRO_FLASH(T, 64);      \
+  if (D == 128) return REPRO_FLASH(T, 128);    \
+  if (D == 256) return REPRO_FLASH(T, 256);
+  if (dtype == 0) { REPRO_FLASH_DIMS(float) }
+  if (dtype == 1) { REPRO_FLASH_DIMS(__nv_bfloat16) }
+#undef REPRO_FLASH_DIMS
 #undef REPRO_FLASH
   return REPRO_UNSUPPORTED;
 }

@@ -1,8 +1,8 @@
 """Model-layout wrappers around the CUDA kernels, and the loader that builds
 them.
 
-Each wrapper takes the model layout (B, S, heads, D), as
-``repro.kernels.ops`` does, and:
+Each wrapper takes the model layout — (B, S, heads, D) for attention and the
+SSD, (B, S, W) for the RG-LRU — as ``repro.kernels.ops`` does, and:
 
 - runs the plain PyTorch version (``ref.py``) when its tensors lie on the
   CPU;
@@ -34,12 +34,19 @@ import torch
 from . import decode_attention as _decode_mod
 from . import flash_attention as _flash_mod
 from . import ref
+from . import rglru_scan as _rglru_mod
+from . import ssd_scan as _ssd_mod
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS: Dict[str, ModuleType] = {"flash_attention": _flash_mod,
-                                  "decode_attention": _decode_mod}
-HEAD_DIMS = (64, 128)
+                                  "decode_attention": _decode_mod,
+                                  "ssd_scan": _ssd_mod,
+                                  "rglru_scan": _rglru_mod}
+# head dims each attention kernel is instantiated for
+HEAD_DIMS = {"flash_attention": (16, 32, 64, 128, 256),
+             "decode_attention": (16, 32, 64, 128)}
+SMEM_PER_BLOCK = 232_448            # bytes of shared memory a block may use on Hopper
 MAX_GROUP = 8                       # query heads per kv head the decode kernel takes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -84,7 +91,7 @@ def library_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the named kernels (default: all) that are not built yet, one
     ``nvcc`` per source, all started together. Returns, per kernel built,
-    the seconds it took and the ``ptxas -v`` lines (registers, spills)."""
+    the seconds it took and the ``ptxas -v`` lines (entry, registers, spills)."""
     names = list(KERNELS if names is None else names)
     with _build_lock:
         todo = [n for n in names if not library_path(n).exists()]
@@ -111,7 +118,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             os.replace(tmp, out)
             report[n] = {"seconds": time.perf_counter() - t0,
                          "ptxas": [ln.strip() for ln in log.splitlines()
-                                   if "registers" in ln or "spill" in ln]}
+                                   if any(w in ln for w in ("entry function", "registers",
+                                                            "spill"))]}
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         return report
@@ -144,23 +152,36 @@ def _placement(name: str, tensors: List[torch.Tensor]) -> str:
     return dev.type
 
 
-def _check_operands(name: str, tensors: Dict[str, torch.Tensor]) -> int:
+def _dtype_code(name: str, tensors: Dict[str, torch.Tensor]) -> int:
+    """The kernel's code for the one dtype ``tensors`` share."""
     dtypes = {t.dtype for t in tensors.values()}
     if len(dtypes) != 1 or next(iter(dtypes)) not in _DTYPE_CODES:
-        raise ValueError(f"{name}: operands must share one dtype of "
+        raise ValueError(f"{name}: {', '.join(tensors)} must share one dtype of "
                          f"{sorted(map(str, _DTYPE_CODES))}, got {sorted(map(str, dtypes))}")
+    return _DTYPE_CODES[next(iter(dtypes))]
+
+
+def _check_operands(name: str, tensors: Dict[str, torch.Tensor]) -> int:
+    code = _dtype_code(name, tensors)
     for arg, t in tensors.items():
         if t.dim() != 4:
             raise ValueError(f"{name}: {arg} must be 4-d (B, S, heads, D), got {tuple(t.shape)}")
-        if t.shape[-1] not in HEAD_DIMS:
+        if t.shape[-1] not in HEAD_DIMS[name]:
             raise ValueError(f"{name}: head dim {t.shape[-1]} not supported "
-                             f"(the kernel takes {HEAD_DIMS})")
+                             f"(the kernel takes {HEAD_DIMS[name]})")
         # the kernels read four elements at a time along D
         if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} needs a contiguous head dim, strides that are "
                              f"multiples of 4 and a 16-byte aligned start, got strides "
                              f"{t.stride()}")
-    return _DTYPE_CODES[next(iter(dtypes))]
+    return code
+
+
+def _check_contiguous_last(name: str, tensors: Dict[str, torch.Tensor]) -> None:
+    for arg, t in tensors.items():
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: {arg} needs a contiguous last dim, got strides "
+                             f"{t.stride()}")
 
 
 def _check_status(name: str, rc: int) -> None:
@@ -245,3 +266,60 @@ def decode_attention(
     _check_status(name, rc)
     LAUNCHES[name] += 1
     return out
+
+
+def ssd(
+    x: torch.Tensor,              # (B, S, H, P) — model layout, dt-scaled
+    a: torch.Tensor,              # (B, S, H) float32 log decays
+    Bm: torch.Tensor,             # (B, S, H, N); may be a head-broadcast view
+    Cm: torch.Tensor,             # (B, S, H, N)
+    *,
+    chunk: int = 256,
+):
+    """Mamba-2 SSD scan. Returns (y (B, S, H, P) in x's dtype, final state
+    (B, H, P, N) float32)."""
+    name = "ssd_scan"
+    if _placement(name, [x, a, Bm, Cm]) == "cpu":
+        return ref.ssd(x, a, Bm, Cm)
+    code = _dtype_code(name, {"x": x, "B": Bm, "C": Cm})
+    if a.dtype != torch.float32:
+        raise ValueError(f"{name}: a must be float32 (the log decays), got {a.dtype}")
+    if x.dim() != 4 or a.shape != x.shape[:3] or Bm.dim() != 4 or Bm.shape != Cm.shape \
+            or Bm.shape[:3] != x.shape[:3]:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, a {tuple(a.shape)}, B "
+                         f"{tuple(Bm.shape)}, C {tuple(Cm.shape)} do not fit (B, S, H, P), "
+                         "(B, S, H), (B, S, H, N)")
+    _check_contiguous_last(name, {"x": x, "B": Bm, "C": Cm})
+    B, S, H, P = x.shape
+    if min(B, S, H, P, Bm.shape[-1]) < 1 or chunk < 1:
+        raise ValueError(f"{name}: empty shape {tuple(x.shape)}/{tuple(Bm.shape)} or "
+                         f"chunk {chunk}")
+    chunk = min(int(chunk), S)
+    lib = _library(name)
+    if lib.ssd_scan_smem_bytes(Bm.shape[-1], chunk) > SMEM_PER_BLOCK:
+        raise ValueError(f"{name}: state width {Bm.shape[-1]} with chunk {chunk} needs more "
+                         f"than {SMEM_PER_BLOCK} bytes of shared memory per block")
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    state = torch.empty((B, H, P, Bm.shape[-1]), dtype=torch.float32, device=x.device)
+    rc = _ssd_mod.launch(lib, x, a, Bm, Cm, y, state, dtype_code=code, chunk=chunk)
+    _check_status(name, rc)
+    LAUNCHES[name] += 1
+    return y, state
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """RG-LRU recurrence ``h_t = a_t·h_{t-1} + b_t`` over a, b (B, S, W);
+    h (B, S, W) in b's dtype, carried in float32."""
+    name = "rglru_scan"
+    if _placement(name, [a, b]) == "cpu":
+        return ref.rglru(a, b)
+    code = _dtype_code(name, {"a": a, "b": b})
+    if a.dim() != 3 or a.shape != b.shape or min(a.shape) < 1:
+        raise ValueError(f"{name}: a {tuple(a.shape)} and b {tuple(b.shape)} must be one "
+                         "non-empty (B, S, W) shape")
+    _check_contiguous_last(name, {"a": a, "b": b})
+    h = torch.empty(a.shape, dtype=b.dtype, device=b.device)
+    rc = _rglru_mod.launch(_library(name), a, b, h, dtype_code=code)
+    _check_status(name, rc)
+    LAUNCHES[name] += 1
+    return h

@@ -1,14 +1,14 @@
-"""Plain PyTorch versions of the two attention kernels, in the model layout.
+"""Plain PyTorch versions of the CUDA kernels, in the model layout.
 
-Deliberately naive — a full mask and one softmax — so they are easy to
-audit. The wrappers in ``ops.py`` run them for tensors on the CPU, the tests
-hold them against ``repro.kernels.ref.ref_attention`` and the Pallas
-kernels in interpret mode, and the chip smoke run holds each CUDA kernel
+Deliberately naive — a full mask and one softmax for attention, a loop over
+time for the two scans — so they are easy to audit. The wrappers in ``ops.py`` run them for tensors on the CPU, the tests
+hold them against ``repro.kernels.ref`` and the Pallas kernels in
+interpret mode, and the chip smoke run holds each CUDA kernel
 against them on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -72,3 +72,36 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return out.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sequential recurrence ``h_t = a_t·h_{t-1} + b_t`` over a, b (B, S, W),
+    carried in float32; h (B, S, W) in b's dtype."""
+    B, S, W = a.shape
+    h = torch.zeros(B, W, dtype=torch.float32, device=a.device) if h0 is None else h0.float()
+    out = torch.empty(B, S, W, dtype=b.dtype, device=b.device)
+    for t in range(S):
+        h = a[:, t].float() * h + b[:, t].float()
+        out[:, t] = h.to(b.dtype)
+    return out
+
+
+def ssd(
+    x: torch.Tensor,              # (B, S, H, P) dt-scaled inputs
+    a: torch.Tensor,              # (B, S, H) log decays
+    Bm: torch.Tensor,             # (B, S, H, N)
+    Cm: torch.Tensor,             # (B, S, H, N)
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-by-token SSD recurrence ``h = exp(a)·h + x⊗B``, ``y = h·C``.
+    Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N) f32)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    h = (torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    y = torch.empty(B, S, H, P, dtype=x.dtype, device=x.device)
+    for t in range(S):
+        decay = torch.exp(a[:, t].float())[..., None, None]
+        h = decay * h + torch.einsum("bhp,bhn->bhpn", x[:, t].float(), Bm[:, t].float())
+        y[:, t] = torch.einsum("bhpn,bhn->bhp", h, Cm[:, t].float()).to(x.dtype)
+    return y, h

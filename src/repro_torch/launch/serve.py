@@ -4,14 +4,16 @@ worker does.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --prompt-len 512 --tokens 16 --batch 4 --requests 4
 
+``--arch`` takes the served families: the dense decoders, ``mamba2-370m``
+and ``recurrentgemma-9b``.
+
 The request's container type is the warmth key
 ``torch/<arch>/generate/b<bucket>``. The worker gets or builds that
 environment through a :class:`WarmCache` — the first request pays the cold
 start (weights onto the card, kernels built, one run at the bucket shape) —
 and calls ``serve_generate(data, env)``; later requests find it warm. It
 runs on the card unless ``--device cpu`` is given, at full width unless
-``--reduced`` is given: the reduced configs have head dim 16, which the
-CUDA kernels do not take, so they serve on the CPU only.
+``--reduced`` is given.
 
 Serving through a port of ``FuncXService`` (endpoints, managers, the wire)
 needs the port of ``repro.core``, a later slice (ROADMAP Queue A item 6).
@@ -61,7 +63,7 @@ def main() -> int:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--arch", default="qwen1.5-0.5b", choices=ARCH_IDS)
     p.add_argument("--reduced", action="store_true",
-                   help="the reduced config instead of full width (CPU only)")
+                   help="the reduced config instead of full width")
     p.add_argument("--requests", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--tokens", type=int, default=8)

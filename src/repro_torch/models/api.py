@@ -1,8 +1,10 @@
 """Unified model API, the port of ``repro.models.api``.
 
-``get_model(cfg)`` returns a :class:`Model` facade over the family
-implementation. Only the dense decoder is ported; the other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``get_model(cfg)`` returns a :class:`Model` facade dispatching to the family
+implementation, as the reference's does: the dense decoder
+(``transformer``), Mamba-2 (``ssm``) and the RecurrentGemma hybrid
+(``rglru``). The other families raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 
 The reference keeps float32 master weights and casts them to ``cfg.dtype``
 at every call (``Model._cast``). The port serves only, so it casts once,
@@ -19,25 +21,29 @@ import torch
 from ..configs import ModelConfig
 from ..device import resolve_device
 from . import params as P
-from . import transformer
+from . import rglru, ssm, transformer
 from .knobs import DEFAULT_KNOBS, RunKnobs
 
 
 def _unported(cfg: ModelConfig) -> Optional[str]:
     """The ROADMAP item that ports ``cfg``'s family, or None if it is ported."""
-    if cfg.family == "ssm":
-        return "Queue A item 5 (Mamba-2, with the ssd_scan kernel)"
     if cfg.mla is not None:
         return "Queue A item 9 (MLA)"
     if cfg.family == "vlm" or cfg.vlm is not None:
         return "Queue A item 10 (VLM)"
     if cfg.family == "moe" or cfg.moe is not None:
         return "Queue A item 11 (MoE)"
-    if cfg.family == "hybrid":
-        return "Queue A item 12 (RecurrentGemma, with the rglru_scan kernel)"
     if cfg.family == "audio":
         return "Queue A item 13 (encoder-decoder)"
     return None
+
+
+def _family_module(cfg: ModelConfig):
+    if cfg.family == "ssm":
+        return ssm
+    if cfg.family == "hybrid":
+        return rglru
+    return transformer       # dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +58,16 @@ class Model:
                 f"repro_torch yet: ROADMAP {item}")
 
     @property
+    def mod(self):
+        return _family_module(self.cfg)
+
+    @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.dtype)
 
     # ---- parameters --------------------------------------------------------
     def spec(self) -> dict:
-        return transformer.model_spec(self.cfg)
+        return self.mod.model_spec(self.cfg)
 
     def param_count(self) -> int:
         return P.count_params(self.spec())
@@ -81,17 +91,17 @@ class Model:
     def prefill(self, params, batch, knobs: RunKnobs = DEFAULT_KNOBS,
                 cache_len: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
         with torch.inference_mode():
-            return transformer.prefill(self.cfg, params, batch, knobs, cache_len=cache_len)
+            return self.mod.prefill(self.cfg, params, batch, knobs, cache_len=cache_len)
 
     def decode_step(self, params, cache, batch,
                     knobs: RunKnobs = DEFAULT_KNOBS) -> Tuple[torch.Tensor, dict]:
         with torch.inference_mode():
-            return transformer.decode_step(self.cfg, params, cache, batch, knobs)
+            return self.mod.decode_step(self.cfg, params, cache, batch, knobs)
 
     # ---- caches ------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, device=None,
                    dtype: Optional[torch.dtype] = None) -> dict:
-        return transformer.init_cache(self.cfg, batch, max_seq, dtype or self.dtype,
+        return self.mod.init_cache(self.cfg, batch, max_seq, dtype or self.dtype,
                                       resolve_device(device))
 
 

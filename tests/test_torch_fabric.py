@@ -19,16 +19,19 @@ from repro_torch.launch.serve import serve_requests
 from repro_torch.serve import fabric
 
 ARCH = "qwen1.5-0.5b"
+# every architecture the port serves: the tests below that take ``arch``
+# run the recurrent two; those written for ARCH run the dense decoder
+ARCHS = [ARCH, "mamba2-370m", "recurrentgemma-9b"]
 
 
-def _envs(monkeypatch, dtype):
+def _envs(monkeypatch, dtype, arch=ARCH):
     """A JAX fabric env and a port fabric env with the same weights."""
     import jax
-    jcfg = jfab.get_reduced_config(ARCH).with_(dtype=dtype)
+    jcfg = jfab.get_reduced_config(arch).with_(dtype=dtype)
     monkeypatch.setattr(jfab, "get_reduced_config", lambda arch: jcfg)
-    jenv = jfab._build_env(ARCH, "generate", 16)
+    jenv = jfab._build_env(arch, "generate", 16)
     weights = jax.tree.map(np.asarray, jenv["params"])
-    tenv = fabric._build_env(ARCH, "generate", 16, cfg=get_reduced_config(ARCH).with_(
+    tenv = fabric._build_env(arch, "generate", 16, cfg=get_reduced_config(arch).with_(
         dtype=dtype), weights=weights, device="cpu")
     return jenv, tenv
 
@@ -46,6 +49,29 @@ def test_greedy_tokens_match_jax_fabric(monkeypatch, prompt_len):
     for fn in ("serve_prefill", "serve_decode"):
         np.testing.assert_array_equal(getattr(fabric, fn)(data, tenv)["next_token"],
                                       np.asarray(getattr(jfab, fn)(data, jenv)["next_token"]))
+
+
+@pytest.mark.parametrize("arch", ARCHS[1:])
+@pytest.mark.parametrize("prompt_len", [16, 11], ids=["bucket", "short"])
+def test_recurrent_archs_greedy_tokens_match_jax_fabric(monkeypatch, arch, prompt_len):
+    """mamba2-370m and recurrentgemma-9b through both fabrics: the port's
+    kernel route (the plain scans on the CPU) against the reference's
+    chunked / associative-scan route, greedy tokens equal in float32."""
+    jenv, tenv = _envs(monkeypatch, "float32", arch)
+    prompt = np.random.default_rng(prompt_len).integers(0, 128, (2, prompt_len)).astype(np.int32)
+    data = {"tokens": prompt, "n_tokens": 6}
+    got = fabric.serve_generate(data, tenv)
+    np.testing.assert_array_equal(got["tokens"], np.asarray(jfab.serve_generate(data, jenv)["tokens"]))
+    assert got["arch"] == arch and got["tokens"].shape == (2, 6)
+
+
+@pytest.mark.parametrize("arch", ARCHS[1:])
+def test_recurrent_archs_serve_cold_then_warm(arch):
+    res = serve_requests(arch, prompt_len=12, n_tokens=3, batch=2, requests=2, full=False,
+                         device="cpu")
+    assert [r["key"] for r in res] == [f"torch/{arch}/generate/b16"] * 2
+    assert [(r["cold"], r["warm"]) for r in res] == [(True, False), (False, True)]
+    assert all(r["tokens"].shape == (2, 3) and (r["tokens"] < 128).all() for r in res)
 
 
 def test_bf16_fabric_logits_match_jax(monkeypatch):

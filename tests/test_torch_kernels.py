@@ -110,7 +110,10 @@ def test_cpu_wrappers_count_no_launches():
     q = torch.randn(1, 8, 2, 64)
     ops.flash_attention(q, q, q)
     ops.decode_attention(q[:, :1], q, q, torch.tensor([8], dtype=torch.int32))
-    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0}
+    ops.ssd(q, -torch.rand(1, 8, 2), q, q, chunk=4)
+    ops.rglru(torch.rand(1, 8, 16), torch.randn(1, 8, 16))
+    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+                            "rglru_scan": 0}
 
 
 def test_wrappers_refuse_other_devices():

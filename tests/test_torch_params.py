@@ -20,7 +20,7 @@ from repro_torch.models.params import (
     tree_paths,
 )
 
-DENSE = ["qwen1.5-0.5b", "qwen1.5-110b", "phi4-mini-3.8b"]
+PORTED = ["qwen1.5-0.5b", "qwen1.5-110b", "phi4-mini-3.8b", "mamba2-370m", "recurrentgemma-9b"]
 
 
 def test_configs_are_copies():
@@ -29,7 +29,7 @@ def test_configs_are_copies():
         assert repr(get_reduced_config(arch)) == repr(jax_reduced(arch))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("full", [False, True], ids=["reduced", "full"])
 def test_spec_paths_and_shapes_match_jax(arch, full):
     cfg = get_config(arch) if full else get_reduced_config(arch)
@@ -52,6 +52,18 @@ def test_init_on_meta_device_matches_jax_shapes(full):
     assert shapes == want
     if full:
         assert get_model(cfg).param_count() == jax_model(jcfg).param_count() == 464_118_784
+
+
+@pytest.mark.parametrize("arch,count", [("mamba2-370m", 420_025_856),
+                                        ("recurrentgemma-9b", 8_578_412_544)])
+def test_full_recurrent_families_on_meta_match_jax(arch, count):
+    """Full mamba2-370m and recurrentgemma-9b (17.2 GB in bf16) built on the
+    meta device: the stacked head_rec / sb trees have the JAX paths and shapes."""
+    params = get_model(get_config(arch)).init(device="meta")
+    shapes = {p: tuple(t.shape) for p, t in leaves_with_paths(params)}
+    want = {p: s.shape for p, s in jax_tree_paths(jax_model(jax_config(arch)).spec()).items()}
+    assert shapes == want
+    assert get_model(get_config(arch)).param_count() == count
 
 
 def test_init_is_seeded_and_cast():
@@ -99,7 +111,6 @@ def test_load_refuses_weights_of_another_shape():
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "minicpm3-4b", "qwen2-vl-7b",
-                                  "mamba2-370m", "recurrentgemma-9b",
                                   "seamless-m4t-large-v2"])
 def test_unported_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
